@@ -1,9 +1,9 @@
 """TnfDistance: tetra(or other k)-nucleotide-frequency vectors, distances,
 and clustering for contig binning (ref: apps/TnfDistance.cpp).
 
-TPU-first design: per-sequence TNF vectors are bincounts over canonical
+Array design: per-sequence TNF vectors are bincounts over canonical
 small-k codes ([B, n_canonical] one pass), and all pairwise Euclidean
-distances come from a single MXU matmul on the L2-normalized matrix
+distances come from a single matmul on the L2-normalized matrix
 (d^2 = 2 - 2 a.b) — replacing the reference's per-pair scalar loops.
 
 Output column order uses sorted canonical k-mers (the reference emits in

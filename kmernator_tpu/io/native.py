@@ -1,11 +1,13 @@
 """ctypes bindings for the native IO kernels (native/io_native.cpp).
 
-Auto-builds the shared library on first use (g++ is in the image); all
-callers fall back to the pure-numpy paths when compilation is unavailable.
+Builds the shared library on first use (g++ is in the image) for the host
+it runs on; all callers fall back to the pure-numpy paths when compilation
+is unavailable.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from typing import Optional, Tuple
@@ -13,8 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO, "native", "io_native.cpp")
-_LIB = os.path.join(_REPO, "native", "libkmernator_io.so")
+_NATIVE = os.path.join(_REPO, "native")
 
 _lib = None
 _tried = False
@@ -37,24 +38,55 @@ def _threads(n_threads: int) -> int:
     return os.cpu_count() or 1
 
 
+def host_target_flags() -> str:
+    """g++'s target options under -march=native: the instruction-set
+    features a -march=native build of this host may use."""
+    return subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                          check=True, capture_output=True, text=True).stdout
+
+
+def native_build_path(name: str, shared: bool, target_flags: str) -> str:
+    """native/build/<host key>/<name>-<source key>[.so]: the host key
+    hashes the target flags, the source key the committed source, so a
+    binary is reused only on a host with the same instruction set and only
+    for the source it was built from."""
+    with open(os.path.join(_NATIVE, name + ".cpp"), "rb") as f:
+        src_key = hashlib.sha256(f.read()).hexdigest()[:16]
+    host_key = hashlib.sha256(target_flags.encode()).hexdigest()[:16]
+    return os.path.join(_NATIVE, "build", host_key, "%s-%s%s"
+                        % (name, src_key, ".so" if shared else ""))
+
+
+def build_native(name: str, shared: bool = False) -> str:
+    """Compile native/<name>.cpp with -O3 -march=native for this host
+    (a shared library when `shared`) unless the host-keyed build exists;
+    returns its path.  Raises CalledProcessError when g++ fails."""
+    out = native_build_path(name, shared, host_target_flags())
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = "%s.tmp%d" % (out, os.getpid())
+        cmd = ["g++", "-O3", "-march=native", "-o", tmp,
+               os.path.join(_NATIVE, name + ".cpp")]
+        cmd += ["-shared", "-fPIC"] if shared else ["-lpthread"]
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, out)
+    return out
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
     try:
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                            "-o", _LIB, _SRC], check=True, capture_output=True)
-        lib = ctypes.CDLL(_LIB)
-        lib.fastq_index.restype = ctypes.c_long
-        lib.fastq_index_mt.restype = ctypes.c_long
-        if hasattr(lib, "format_mer_lines"):
-            lib.format_mer_lines.restype = ctypes.c_long
-        _lib = lib
-    except Exception:
-        _lib = None
+        lib = ctypes.CDLL(build_native("io_native", shared=True))
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    lib.fastq_index.restype = ctypes.c_long
+    lib.fastq_index_mt.restype = ctypes.c_long
+    if hasattr(lib, "format_mer_lines"):
+        lib.format_mer_lines.restype = ctypes.c_long
+    _lib = lib
     return _lib
 
 

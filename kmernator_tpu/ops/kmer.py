@@ -1,6 +1,6 @@
 """Canonical k-mer window extraction over packed integer words.
 
-TPU-first replacement for the reference's byte-wise shiftLeft window builder
+Array replacement for the reference's byte-wise shiftLeft window builder
 (ref: src/Kmer.h:1323-1375 KmerArrayPair::build + src/TwoBitSequence.h
 shiftLeftMatrix).  A k-mer is W = ceil(k/16) uint32 words, 16 bases/word,
 base 0 in the two most-significant bits — so unsigned lexicographic compare
@@ -9,7 +9,7 @@ of the word vector equals the reference's memcmp of packed bytes
 buildLeastComplement (ref: src/Kmer.h:356-364).
 
 All functions are written against the array-module namespace `xp` so the
-same code runs as the numpy host oracle and under jax.numpy/jit on TPU.
+same code runs as the numpy host oracle and under jax.numpy/jit on the device.
 """
 from __future__ import annotations
 

@@ -28,13 +28,8 @@ from kmernator_tpu.parallel.device_spectrum import SENTINEL, extract_canonical
 
 def _shard_map_unchecked(fn, **kw):
     """shard_map with replication checking off (the matcher's pmax merge is
-    replicated by construction; kwarg name varies across jax versions)."""
-    for flag in ({"check_vma": False}, {"check_rep": False}, {}):
-        try:
-            return shard_map(fn, **kw, **flag)
-        except TypeError:
-            continue
-    raise RuntimeError("shard_map signature mismatch")
+    replicated by construction)."""
+    return shard_map(fn, **kw, check_vma=False)
 
 
 def build_index_fn(mesh: Mesh, k: int, capacity_factor: float = 2.0):

@@ -2,8 +2,8 @@
 
 Plays the role of ScopedMPIComm + DistributedOfstreamMap
 (ref: src/MPIUtils.h:257-391, src/DistributedOfstreamMap.h:67-412) for
-multi-host TPU pods: `jax.distributed.initialize` over DCN, a global mesh
-spanning all hosts' devices, per-process byte-range input partitions with
+multi-process runs: `jax.distributed.initialize`, a global mesh spanning
+every process's devices, per-process byte-range input partitions with
 pair-preserving resync, and rank-ordered output concatenation (rank 0
 first — the reference's append ordering, apps/FilterReads-P.cpp:190-197).
 
@@ -19,22 +19,26 @@ import numpy as np
 
 def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
                process_id: Optional[int] = None):
-    """ref: ScopedMPIComm ctor.  No-op when running single-process."""
+    """ref: ScopedMPIComm ctor.  No-op when running single-process.
+
+    The processes of one run share one host, one process per GPU: process
+    i opens only GPU i (`local_device_ids`), so no process reserves memory
+    on another's card."""
     import jax
     if num_processes is None:
         num_processes = int(os.environ.get("KMERNATOR_TPU_NPROCS", "1"))
     if num_processes > 1:
         jax.distributed.initialize(coordinator_address=coordinator,
                                    num_processes=num_processes,
-                                   process_id=process_id)
+                                   process_id=process_id,
+                                   local_device_ids=[process_id])
     os.environ["KMERNATOR_TPU_RANK"] = str(jax.process_index())
     return jax.process_index(), jax.process_count()
 
 
 def global_mesh(axis: str = "d"):
-    """Mesh over every device of every process (ICI within host, DCN across).
-    shard_map collectives over this mesh ride the fastest links XLA can
-    schedule — the reference's MPI_Alltoallv equivalent."""
+    """Mesh over every device of every process.  shard_map collectives over
+    this mesh are the reference's MPI_Alltoallv equivalent."""
     import jax
     from jax.sharding import Mesh
     return Mesh(np.array(jax.devices()), (axis,))

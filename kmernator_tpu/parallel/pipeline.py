@@ -13,8 +13,6 @@ from typing import Iterable, Optional, Tuple
 
 import numpy as np
 
-from kmernator_tpu.utils.jaxconfig import enable_compilation_cache
-enable_compilation_cache()
 import jax
 import jax.numpy as jnp
 

@@ -9,9 +9,9 @@ sort+segment-reduce produces identical results (singletons are simply rows
 with count == 1; `purge_min_depth` drops rows below the threshold, matching
 KmerSpectrum::purgeMinDepth + ReadSelector scoring against the weak map).
 
-This module is the host/exact implementation (numpy); the device (TPU)
+This module is the host/exact implementation (numpy); the device
 implementation with identical semantics lives in device_spectrum.py and the
-sharded multi-chip version in mesh.py.
+sharded multi-device version in mesh.py.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Leveled logging with per-process identity.
 
 Mirrors the reference's Log/Logger level system (ref: src/Log.h:79-486):
-Verbose/Debug/Warn/Error levels with per-rank stamps.  In the TPU build the
+Verbose/Debug/Warn/Error levels with per-rank stamps.  Here the
 "rank" is the jax process index (multi-host) and messages go to stderr.
 """
 from __future__ import annotations

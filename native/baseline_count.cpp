@@ -2,7 +2,7 @@
 //
 // Stands in for the reference's single-node hot loop (KmerArrayPair::build
 // + KmerSpectrum::append over an open-hash map) as the CPU baseline that
-// bench.py compares the TPU pipeline against.  Independently implemented:
+// bench.py compares the device pipeline against.  Independently implemented:
 // packs reads 2-bit, extracts canonical (min of forward/revcomp) k-mers and
 // counts them in an open-addressing hash table, multithreaded with
 // per-thread ownership of hash ranges (the reference's thread partitioning

@@ -1,6 +1,6 @@
 // Native IO kernels for the host-side input pipeline.
 //
-// TPU-native replacement for the reference's mmap FASTQ parser hot path
+// Replacement for the reference's mmap FASTQ parser hot path
 // (ref: src/ReadFileReader.h FastqStreamParser): a single-pass index over
 // the raw buffer producing columnar record offsets, plus a packer that
 // scatters ragged reads into the dense padded [B, L] device-feed tensors.

@@ -1,11 +1,10 @@
-"""DistributedNucleatingAssembler extension-consistency: seeds from
-test/5.fa extended against the phiX read set must grow and remain exact
+"""DistributedNucleatingAssembler extension-consistency: PhiX174 seed
+contigs extended against a seeded PhiX read set must grow and remain exact
 substrings of the (circular) PhiX174 genome."""
 import os
 import subprocess
 import sys
 
-REF = "/root/reference/test"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
 
@@ -23,12 +22,12 @@ def load_fasta(path):
     return seqs
 
 
-def test_extension_consistency(tmp_path):
+def test_extension_consistency(tmp_path, phix_fastq, phix_seeds):
     out = str(tmp_path / "asm.fa")
     subprocess.run(
         [sys.executable, "-m", "kmernator_tpu.apps.nucleating_assembler",
-         "--contig-file", REF + "/5.fa", "--out", out,
-         "--max-iterations", "2", "25", REF + "/1000.fastq"],
+         "--contig-file", phix_seeds, "--out", out,
+         "--max-iterations", "2", "25", phix_fastq],
         check=True, env=ENV, capture_output=True)
     contigs = load_fasta(out)
     assert len(contigs) == 5
@@ -50,14 +49,14 @@ def test_extension_consistency(tmp_path):
     assert grew >= 4, "expected most seeds to extend"
 
 
-def test_mesh_matches_host_assembly(tmp_path):
+def test_mesh_matches_host_assembly(tmp_path, phix_fastq, phix_seeds):
     """--mesh 4 (distributed matcher over the virtual mesh) must produce
     byte-identical contigs to the host matcher path."""
     host_out = str(tmp_path / "host.fa")
     mesh_out = str(tmp_path / "mesh.fa")
     base = [sys.executable, "-m", "kmernator_tpu.apps.nucleating_assembler",
-            "--contig-file", REF + "/5.fa", "--max-iterations", "2",
-            "25", REF + "/1000.fastq"]
+            "--contig-file", phix_seeds, "--max-iterations", "2",
+            "25", phix_fastq]
     env = dict(ENV, XLA_FLAGS="--xla_force_host_platform_device_count=8")
     subprocess.run(base + ["--out", host_out], check=True, env=env,
                    capture_output=True)
@@ -67,18 +66,18 @@ def test_mesh_matches_host_assembly(tmp_path):
     assert open(mesh_out, "rb").read() == open(host_out, "rb").read()
 
 
-def test_contig_extender_cli(tmp_path):
+def test_contig_extender_cli(tmp_path, phix_fastq, phix_seeds):
     """Standalone ContigExtender app (ref: apps/ContigExtender.cpp): seeds
     extend into exact phiX substrings, names get -l<n>r<m> suffixes."""
     out = str(tmp_path / "extended.fa")
     subprocess.run(
         [sys.executable, "-m", "kmernator_tpu.apps.contig_extender",
-         "--contig-file", REF + "/5.fa", "--out", out, "25",
-         REF + "/1000.fastq"],
+         "--contig-file", phix_seeds, "--out", out, "25",
+         phix_fastq],
         check=True, env=ENV, capture_output=True)
     contigs = load_fasta(out)
     assert len(contigs) == 5
-    seeds = load_fasta(REF + "/5.fa")
+    seeds = load_fasta(phix_seeds)
     phix = "".join(l.strip() for l in
                    open(os.path.join(REPO, "kmernator_tpu/data/phix174.fasta"))
                    if not l.startswith(">"))

@@ -4,19 +4,18 @@ Hit sets must be decomposition-invariant."""
 import numpy as np
 import pytest
 
-REF = "/root/reference/test"
 K = 31
 MAX_IDS = 48
 
 
-def _inputs():
+def _inputs(path):
     from kmernator_tpu.io.reads import load_reads, BASE_CODE
     from kmernator_tpu.ops.kmer import extract_kmers_flat
     from kmernator_tpu.ops.weights import window_weights, good_kmer_mask
     from kmernator_tpu.parallel.device_spectrum import pack_readset
     from kmernator_tpu.parallel.spectrum import pack_u64
 
-    rs = load_reads([REF + "/1000.fastq"])
+    rs = load_reads([path])
     L = rs.max_length()
     codes, _, lengths = pack_readset(rs, L, 3, 33)
 
@@ -41,14 +40,14 @@ def _inputs():
 
 
 @pytest.mark.parametrize("ndev", [1, 4])
-def test_dist_match_vs_host(ndev):
+def test_dist_match_vs_host(ndev, phix_fastq):
     import jax.numpy as jnp
     from kmernator_tpu.parallel.mesh import make_mesh
     from kmernator_tpu.parallel.dist_match import build_index_fn, match_fn
     from kmernator_tpu.ops.match import KmerReadIndex
     from kmernator_tpu.io.reads import load_reads
 
-    rs, codes, good2d, lengths, canon, keys_flat, read_id, good_flat = _inputs()
+    rs, codes, good2d, lengths, canon, keys_flat, read_id, good_flat = _inputs(phix_fastq)
     B, L = codes.shape
     pad = (-B) % ndev
     if pad:

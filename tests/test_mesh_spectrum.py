@@ -10,17 +10,16 @@ import jax
 from kmernator_tpu.io.reads import load_reads
 from tests.test_device_spectrum import host_counts
 
-REF = "/root/reference/test"
 K = 31
 
 
 @pytest.mark.parametrize("ndev", [1, 2, 4, 8])
-def test_distributed_counts_match_host(ndev):
+def test_distributed_counts_match_host(ndev, phix_fastq):
     import jax.numpy as jnp
     from kmernator_tpu.parallel.mesh import make_mesh, distributed_spectrum_fn
     from kmernator_tpu.parallel.device_spectrum import pack_readset
 
-    rs = load_reads([REF + "/1000.fastq"])
+    rs = load_reads([phix_fastq])
     rs.identify_pairs()
     L = rs.max_length()
     codes, logp, lengths = pack_readset(rs, L, 3, 33)

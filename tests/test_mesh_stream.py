@@ -5,18 +5,17 @@ window counts — at every mesh size and batch cadence."""
 import numpy as np
 import pytest
 
-REF = "/root/reference/test"
 K = 31
 
 
-def _padded_input():
-    """1000.fastq as padded (codes, good2d, lengths) with the exact host
+def _padded_input(path):
+    """The seeded 1000-read FASTQ as padded (codes, good2d, lengths) with the exact host
     goodness mask (same prep as apps/filter_reads.py --mesh)."""
     from kmernator_tpu.io.reads import load_reads, BASE_CODE
     from kmernator_tpu.ops.weights import window_weights, good_kmer_mask
     from kmernator_tpu.parallel.device_spectrum import (pack_readset,
                                                         ragged_to_padded)
-    rs = load_reads([REF + "/1000.fastq"])
+    rs = load_reads([path])
     L = max(rs.max_length(), K)
     codes, _, lengths = pack_readset(rs, L, 3, 33)
     codes_raw = BASE_CODE[rs.seq]
@@ -30,10 +29,10 @@ def _padded_input():
     return rs, codes, good2d, lengths, nw
 
 
-def _host_table():
+def _host_table(path):
     from kmernator_tpu.io.reads import load_reads
     from kmernator_tpu.apps.filter_reads import build_spectrum
-    rs = load_reads([REF + "/1000.fastq"])
+    rs = load_reads([path])
     sp = build_spectrum(rs, K, 3, 33, 0.10)
     sp.purge_min_depth(2)
     return dict(zip(sp.keys.tolist(), sp.counts.tolist())), rs
@@ -41,12 +40,12 @@ def _host_table():
 
 @pytest.mark.parametrize("n_devices,batch_reads", [(1, 1000), (2, 250),
                                                    (8, 128), (8, 1000)])
-def test_mesh_stream_build_matches_host(n_devices, batch_reads):
+def test_mesh_stream_build_matches_host(n_devices, batch_reads, phix_fastq):
     from kmernator_tpu.parallel.mesh import make_mesh
     from kmernator_tpu.parallel.mesh_stream import MeshStreamingSpectrum
     from kmernator_tpu.parallel.spectrum import pack_keys
 
-    rs, codes, good2d, lengths, nw = _padded_input()
+    rs, codes, good2d, lengths, nw = _padded_input(phix_fastq)
     mesh = make_mesh(n_devices)
     sp = MeshStreamingSpectrum(mesh, K, capacity=65536)
     for s in range(0, rs.n, batch_reads):
@@ -54,13 +53,13 @@ def test_mesh_stream_build_matches_host(n_devices, batch_reads):
         sp.add_batch(codes[s:e], good2d[s:e], lengths[s:e])
     keys, counts = sp.finalize(min_depth=2)
     got = dict(zip(pack_keys(keys).tolist(), counts.tolist()))
-    want, _ = _host_table()
+    want, _ = _host_table(phix_fastq)
     assert got == want
     assert sp.purged_singletons == 0
 
 
 @pytest.mark.parametrize("n_devices", [1, 2, 8])
-def test_mesh_stream_lookup_matches_host(n_devices):
+def test_mesh_stream_lookup_matches_host(n_devices, phix_fastq):
     """Two-pass flow: streaming build, then batched lookup — per-window
     counts must equal the host spectrum lookup (the ReqResp analogue,
     ref: DistributedFunctions.h:809-902)."""
@@ -72,7 +71,7 @@ def test_mesh_stream_lookup_matches_host(n_devices):
     from kmernator_tpu.io.reads import load_reads
     from kmernator_tpu.apps.filter_reads import build_spectrum
 
-    rs, codes, good2d, lengths, nw = _padded_input()
+    rs, codes, good2d, lengths, nw = _padded_input(phix_fastq)
     mesh = make_mesh(n_devices)
     sp = MeshStreamingSpectrum(mesh, K, capacity=65536)
     B = 250
@@ -144,13 +143,13 @@ def test_mesh_stream_purge_under_pressure():
     assert sum(1 for d in devs if d == 0) >= 0.9 * len(devs)
 
 
-def test_mesh_stream_set_table_roundtrip():
+def test_mesh_stream_set_table_roundtrip(phix_fastq):
     """set_table (push a host-transformed table back to the shards) must
     leave lookups identical when the table is unchanged."""
     from kmernator_tpu.parallel.mesh import make_mesh
     from kmernator_tpu.parallel.mesh_stream import MeshStreamingSpectrum
 
-    rs, codes, good2d, lengths, nw = _padded_input()
+    rs, codes, good2d, lengths, nw = _padded_input(phix_fastq)
     mesh = make_mesh(4)
     sp = MeshStreamingSpectrum(mesh, K, capacity=65536)
     sp.add_batch(codes, good2d, lengths)

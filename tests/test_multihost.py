@@ -271,7 +271,7 @@ def test_streaming_distributed_bounded_rss_512mb(tmp_path):
     Measured on this host (2026-08-19): 2.2 GB/process for a 508 MB input
     (254 MB partition each), flat in input size; the CPU backend charges
     the virtual devices' 'HBM' (shard tables + sort workspace) to host
-    RSS, which a real TPU would not."""
+    RSS, which a real accelerator would not."""
     path = str(tmp_path / "big.fastq")
     rng = np.random.default_rng(5)
     genome = rng.integers(0, 4, 5_000_000, dtype=np.uint8)

@@ -168,7 +168,7 @@ def test_two_proc_scaling_ratio_artifact(tmp_path):
         "note": "CPU-backend lockstep-protocol measurement: both runs "
                 "share the SAME physical cores, so compute does not "
                 "scale; the ratio isolates the coordination overhead "
-                "that real 2-host TPU would add to independent per-host "
+                "that two real hosts would add to independent per-host "
                 "compute (see SCALING.md)",
     }
     out = os.environ.get("KMTPU_SCALING_OUT",
